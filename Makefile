@@ -1,28 +1,24 @@
 # Verification gate (SURVEY.md §4): one command a round can run.
 #
-#   make check       - tests + entry/dryrun + bench smoke w/ regression gate
-#   make check-fast  - tests + entry/dryrun only (no TPU needed)
+#   make check       - tests + entry/dryrun (CPU, 8 virtual devices)
 #   make test        - full pytest suite (forced-CPU, 8 virtual devices)
-#   make entry       - entry() compile check + dryrun_multichip(8) on CPU
-#   make smoke       - bench.py on the TPU vs newest BENCH_r*.json (2x gate)
+#   make entry       - entry() compile check + dryrun_multichip on CPU
 #   make native      - build the C++ host toolkit
+#
+# On a machine with a GPU: `python chip_smoke.py` (one card) and
+# `python chip_smoke.py --four-cards` (four cards).
 
 PY ?= python
 
-.PHONY: check check-fast test entry smoke native
+.PHONY: check test entry native
 
-check: test entry smoke
-
-check-fast: test entry
+check: test entry
 
 test:
 	$(PY) -m pytest tests/ -q
 
 entry:
 	$(PY) __graft_entry__.py
-
-smoke:
-	$(PY) tools/bench_smoke.py
 
 native:
 	$(MAKE) -C native

@@ -18,7 +18,7 @@ Run (CPU ok; pass --quick for a ~1-minute toy run):
 
 The one-command equivalent of this file is the CLI pipeline:
 
-    python -m gcn_maxcut_tpu pipeline --workdir out --num-graphs 20 \
+    python -m gcn_maxcut pipeline --workdir out --num-graphs 20 \
         --nodes 500 --min-degree 6 --max-degree 8 --pad-to 1000 \
         --epochs 1000 --seed 1000
 """
@@ -34,7 +34,7 @@ def main(workdir: str = "pipeline_out", quick: bool = False) -> int:
     os.makedirs(workdir, exist_ok=True)
 
     # --- cell 1-4: generation (reference seeds 1000+i, d in [6, 8]) -----
-    from gcn_maxcut_tpu.data import DataConfig, generate_graph, process_graphs
+    from gcn_maxcut.data import DataConfig, generate_graph, process_graphs
 
     n, pad, num_train, epochs = (
         (60, 64, 6, 120) if quick else (500, 1000, 20, 1000)
@@ -54,7 +54,7 @@ def main(workdir: str = "pipeline_out", quick: bool = False) -> int:
 
     # --- cell 5-8: processing (terminals -> ids 0..2, adjacency-as-
     # features via the padded rectangular quirk, stacked batch) ----------
-    from gcn_maxcut_tpu.core import pad_graph_batch
+    from gcn_maxcut.core import pad_graph_batch
 
     ds = process_graphs(train_specs, DataConfig(max_nodes=pad))
     batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
@@ -62,7 +62,7 @@ def main(workdir: str = "pipeline_out", quick: bool = False) -> int:
 
     # --- cell 9-14: training (lr 1e-3, tolerance 1e-4, patience 20 — the
     # reference recipe; epochs_per_call scans epochs inside one jit) -----
-    from gcn_maxcut_tpu.train import (
+    from gcn_maxcut.train import (
         TrainingConfig,
         save_checkpoint,
         train_model,
@@ -89,8 +89,8 @@ def main(workdir: str = "pipeline_out", quick: bool = False) -> int:
 
     # --- cell 15-24: held-out evaluation (argmax + 200-rollout post +
     # greedy-flip refinement per graph, bucketed by size) ----------------
-    from gcn_maxcut_tpu.baselines import randomized_k_way_maxcut
-    from gcn_maxcut_tpu.eval import (
+    from gcn_maxcut.baselines import randomized_k_way_maxcut
+    from gcn_maxcut.eval import (
         analyze_results,
         generate_summary_report,
         print_analysis_report,
@@ -145,10 +145,10 @@ def main(workdir: str = "pipeline_out", quick: bool = False) -> int:
     print(f"reports -> {workdir}/SUMMARY.md, {workdir}/results.json")
 
     # --- cell 31-35: charts (skipped gracefully without matplotlib) -----
-    from gcn_maxcut_tpu.viz import HAS_MATPLOTLIB
+    from gcn_maxcut.viz import HAS_MATPLOTLIB
 
     if HAS_MATPLOTLIB:
-        from gcn_maxcut_tpu.viz import bar_plot_3, plot_loss_history
+        from gcn_maxcut.viz import bar_plot_3, plot_loss_history
 
         plot_loss_history(
             history, save_path=os.path.join(workdir, "loss_curve.png")

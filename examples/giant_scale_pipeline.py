@@ -13,10 +13,9 @@ framework's at-scale recipe (BASELINE configs[3..4]) in library-API form:
      from a random init) — the at-scale attribution ablation of
      PARITY §4-5.
 
-Defaults are sized to run on CPU in ~a minute; scale `N` up on a TPU
-(n=100k trains in ~0.7 s at 60 epochs on a v5e; 10M-node circulant
-graphs use `bench.giant_demo.train_banded_giant_packed` instead — 62 ms
-per epoch on one chip).
+Defaults are sized to run on CPU in ~a minute; scale `N` up on a GPU
+(10M-node circulant graphs use `bench.giant_demo.train_banded_giant_packed`
+instead).
 
 Run:  python examples/giant_scale_pipeline.py
 """
@@ -28,9 +27,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from gcn_maxcut_tpu.baselines import greedy_sweep_maxcut
-from gcn_maxcut_tpu.parallel import partition_nodes_metis, partition_quality
-from gcn_maxcut_tpu.parallel.giant import GiantConfig, train_giant_graph
+from gcn_maxcut.baselines import greedy_sweep_maxcut
+from gcn_maxcut.parallel import partition_nodes_metis, partition_quality
+from gcn_maxcut.parallel.giant import GiantConfig, train_giant_graph
 
 N = 20_000
 D_REG = 8
@@ -66,9 +65,7 @@ def main():
     cfg = GiantConfig(
         num_classes=K, dim_embedding=64, hidden_dim=32,
         number_epochs=40, epochs_per_call=10, log_every=10, seed=SEED,
-        # routing levers (silently inert on graphs that do not band):
-        block_ell=False,          # set True on TPU for the Pallas hop-0 path
-        local_reorder="off",
+        local_reorder="off",      # "rcm" bands each shard's local rows
     )
     out = train_giant_graph(
         senders, receivers, N, cfg, return_assignment=True

@@ -13,16 +13,16 @@ from pathlib import Path
 
 import jax
 
-from gcn_maxcut_tpu.data import DataConfig, generate_graph_dataset, process_graphs
-from gcn_maxcut_tpu.eval import (
+from gcn_maxcut.data import DataConfig, generate_graph_dataset, process_graphs
+from gcn_maxcut.eval import (
     analyze_results,
     generate_summary_report,
     print_analysis_report,
     save_results,
     test_multiple_graphs,
 )
-from gcn_maxcut_tpu.train import TrainingConfig, load_checkpoint, setup_train_state
-from gcn_maxcut_tpu.viz import HAS_MATPLOTLIB, create_test_visualizations
+from gcn_maxcut.train import TrainingConfig, load_checkpoint, setup_train_state
+from gcn_maxcut.viz import HAS_MATPLOTLIB, create_test_visualizations
 
 GRAPH_SIZES = [50, 100, 200, 300, 500]
 GRAPHS_PER_SIZE = 10

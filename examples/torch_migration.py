@@ -7,13 +7,13 @@ script shows the full round trip:
   1. load the reference checkpoint — DGL GraphConv weights map 1:1, the
      torch Adam moments graft into optax state, the pickled config is
      translated (no reference code needs to be installed);
-  2. continue training on TPU from exactly where the reference stopped;
+  2. continue training on the accelerator from exactly where the reference stopped;
   3. export back to the reference's torch.save layout so its own tooling
      (``load_neural_model``) can read the result.
 
 Equivalent CLI:
-    python -m gcn_maxcut_tpu convert final_mymodel.pth migrated.npz
-    python -m gcn_maxcut_tpu convert final_mymodel.npz exported.pth
+    python -m gcn_maxcut convert final_mymodel.pth migrated.npz
+    python -m gcn_maxcut convert final_mymodel.npz exported.pth
 
 Usage:
     python examples/torch_migration.py path/to/final_model.pth
@@ -23,9 +23,9 @@ import sys
 
 import jax
 
-from gcn_maxcut_tpu.core.graph import pad_graph_batch
-from gcn_maxcut_tpu.data import DataConfig, generate_graph, process_graphs
-from gcn_maxcut_tpu.train import (
+from gcn_maxcut.core.graph import pad_graph_batch
+from gcn_maxcut.data import DataConfig, generate_graph, process_graphs
+from gcn_maxcut.train import (
     TrainingConfig,
     load_torch_checkpoint,
     make_epoch_fn,
@@ -61,7 +61,7 @@ def main(path: str) -> int:
         params, opt_state or state.opt_state, batch,
         jax.random.PRNGKey(0), num_epochs=5,
     )
-    print("resumed 5 epochs on TPU, losses:", [float(x) for x in losses])
+    print("resumed 5 epochs, losses:", [float(x) for x in losses])
 
     # 3. export back for reference tooling
     out = save_torch_checkpoint(

@@ -12,8 +12,8 @@ from pathlib import Path
 
 import numpy as np
 
-from gcn_maxcut_tpu.eval import load_results
-from gcn_maxcut_tpu.viz import (
+from gcn_maxcut.eval import load_results
+from gcn_maxcut.viz import (
     HAS_MATPLOTLIB,
     bar_plot_3,
     bar_plot_speedup,

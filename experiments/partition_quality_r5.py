@@ -51,7 +51,7 @@ def graphs():
     s, r = banded(63, 0.0)
     perm = rng.permutation(n)
     yield "shuffled", (perm[s], perm[r])
-    from gcn_maxcut_tpu.data.generate import random_regular_edges
+    from gcn_maxcut.data.generate import random_regular_edges
 
     e = random_regular_edges(n, 8, seed=SEED)
     yield "expander", (
@@ -61,12 +61,12 @@ def graphs():
 
 
 def main():
-    from gcn_maxcut_tpu.parallel import (
+    from gcn_maxcut.parallel import (
         partition_nodes_bfs,
         partition_nodes_contiguous,
         partition_nodes_metis,
     )
-    from gcn_maxcut_tpu.parallel.partition import partition_quality
+    from gcn_maxcut.parallel.partition import partition_quality
 
     out = {}
     for name, (s, r) in graphs():

@@ -12,28 +12,13 @@ Usage: python experiments/quality_final.py [variant] [output.json]
 
 import json
 import os
-import subprocess
 import sys
-
-if os.environ.get("PROBE_CHILD") != "1" and __name__ == "__main__":
-    for attempt in range(4):
-        try:
-            rc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), *sys.argv[1:]],
-                env=dict(os.environ, PROBE_CHILD="1"),
-                timeout=int(os.environ.get("SWEEP_TIMEOUT", "2400")),
-            ).returncode
-        except subprocess.TimeoutExpired:
-            print(f"[final] attempt {attempt} timed out; retrying", flush=True)
-            continue
-        sys.exit(rc)
-    sys.exit(1)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from quality_sweep import VARIANTS  # noqa: E402  (sibling module)
 
-from gcn_maxcut_tpu.bench.quality import run_quality_suite  # noqa: E402
+from gcn_maxcut.bench.quality import run_quality_suite  # noqa: E402
 
 
 def main():

@@ -13,26 +13,11 @@ Variants: base long cosine big restarts combo
 
 import json
 import os
-import subprocess
 import sys
-
-if os.environ.get("PROBE_CHILD") != "1" and __name__ == "__main__":
-    for attempt in range(4):
-        try:
-            rc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), *sys.argv[1:]],
-                env=dict(os.environ, PROBE_CHILD="1"),
-                timeout=int(os.environ.get("SWEEP_TIMEOUT", "1200")),
-            ).returncode
-        except subprocess.TimeoutExpired:
-            print(f"[sweep] attempt {attempt} timed out; retrying", flush=True)
-            continue
-        sys.exit(rc)
-    sys.exit(1)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gcn_maxcut_tpu.bench.quality import run_quality_suite
+from gcn_maxcut.bench.quality import run_quality_suite
 
 VARIANTS = {
     "base": {},

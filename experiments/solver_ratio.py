@@ -7,35 +7,20 @@ Usage: python experiments/solver_ratio.py [out.json] [time_limit]
 
 import json
 import os
-import subprocess
 import sys
-
-if os.environ.get("PROBE_CHILD") != "1" and __name__ == "__main__":
-    for attempt in range(3):
-        try:
-            rc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), *sys.argv[1:]],
-                env=dict(os.environ, PROBE_CHILD="1"),
-                timeout=int(os.environ.get("SWEEP_TIMEOUT", "3000")),
-            ).returncode
-        except subprocess.TimeoutExpired:
-            print(f"[ratio] attempt {attempt} timed out; retrying", flush=True)
-            continue
-        sys.exit(rc)
-    sys.exit(1)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import numpy as np
 
-from gcn_maxcut_tpu.baselines.exact import anytime_solver
-from gcn_maxcut_tpu.bench.quality import _suite_specs, _train, _train_specs
-from gcn_maxcut_tpu.core.graph import dense_adjacency
-from gcn_maxcut_tpu.data.process import DataConfig, process_graphs
-from gcn_maxcut_tpu.eval.decode import refine_multi_start
-from gcn_maxcut_tpu.models.gcn import gcn_softmax_apply
-from gcn_maxcut_tpu.utils.cache import enable_compilation_cache
+from gcn_maxcut.baselines.exact import anytime_solver
+from gcn_maxcut.bench.quality import _suite_specs, _train, _train_specs
+from gcn_maxcut.core.graph import dense_adjacency
+from gcn_maxcut.data.process import DataConfig, process_graphs
+from gcn_maxcut.eval.decode import refine_multi_start
+from gcn_maxcut.models.gcn import gcn_softmax_apply
+from gcn_maxcut.utils.cache import enable_compilation_cache
 
 
 def main():

@@ -1,0 +1,4 @@
+from gcn_maxcut.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,4 +1,4 @@
-// graphtools — native host-side graph toolkit for gcn_maxcut_tpu.
+// graphtools — native host-side graph toolkit for gcn_maxcut.
 //
 // The reference relies on external native code for everything heavy (DGL's
 // C++ kernels, the CPLEX binary; SURVEY.md §2).  Device compute here is
@@ -18,7 +18,7 @@
 //   * gt_greedy_maxcut   — best-improvement flip local search (host
 //                          baseline for verifying device local search).
 //
-// Exposed as a plain C ABI consumed via ctypes (gcn_maxcut_tpu/native/).
+// Exposed as a plain C ABI consumed via ctypes (gcn_maxcut/native/).
 // Build: make -C native  (g++ -O3 -shared -fPIC).
 
 #include <algorithm>

@@ -2,7 +2,7 @@
 
 Written from the math in SURVEY.md §2.3/§7.3 (dense HC formula, DGL
 GraphConv norm='both', straight-through detach algebra); used to verify that
-the TPU-native edge-form implementations are algebraically identical.
+the edge-form implementations are algebraically identical.
 """
 
 from __future__ import annotations

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gcn_maxcut_tpu.core import graph_from_dense
-from gcn_maxcut_tpu.data import generate_graph, process_graphs, DataConfig
-from gcn_maxcut_tpu.baselines import (
+from gcn_maxcut.core import graph_from_dense
+from gcn_maxcut.data import generate_graph, process_graphs, DataConfig
+from gcn_maxcut.baselines import (
     randomized_k_way_maxcut,
     evaluate_algorithm_on_graphs,
     test_fixed_terminals as fixed_terminals_harness,
@@ -19,7 +19,7 @@ from gcn_maxcut_tpu.baselines import (
     anytime_solver,
     solver_balanced,
 )
-from gcn_maxcut_tpu.objectives import hard_cut_value
+from gcn_maxcut.objectives import hard_cut_value
 from oracle import brute_force_maxcut as oracle_bf, oracle_cut_value
 
 
@@ -79,7 +79,7 @@ def test_greedy_local_search_reaches_local_opt():
     asn, cut = greedy_flip_local_search(g, init.astype(jnp.int32))
     assert float(cut) >= cut0
     # local optimality: no single move improves
-    from gcn_maxcut_tpu.baselines.local_search import _move_gains
+    from gcn_maxcut.baselines.local_search import _move_gains
 
     gains = np.asarray(_move_gains(g, asn, 3, 3))
     assert np.nanmax(gains[np.isfinite(gains)]) <= 1e-5
@@ -111,7 +111,7 @@ def test_multi_max_cut_recursive():
     """Recursive 2-way-split heuristic (reference huerestics_multi-max.ipynb
     cell 6): valid k-way assignment, terminals in distinct classes, cut
     consistent with the oracle evaluator and at least random-floor quality."""
-    from gcn_maxcut_tpu.baselines import multi_max_cut_recursive
+    from gcn_maxcut.baselines import multi_max_cut_recursive
 
     g = _graph(n=24, d=4, seed=11)
     asn, cut = multi_max_cut_recursive(g, [0, 1, 2], jax.random.PRNGKey(3))
@@ -127,7 +127,7 @@ def test_multi_max_cut_recursive():
 
 
 def test_multi_max_cut_recursive_k4_separates_terminals():
-    from gcn_maxcut_tpu.baselines import multi_max_cut_recursive
+    from gcn_maxcut.baselines import multi_max_cut_recursive
 
     g = _graph(n=20, d=4, seed=12)
     asn, cut = multi_max_cut_recursive(g, [0, 1, 2, 3], jax.random.PRNGKey(4))
@@ -188,7 +188,7 @@ def test_solver_balanced_sizes():
 
 
 def test_analyze_benchmark_results(tmp_path):
-    from gcn_maxcut_tpu.baselines.analysis import analyze_benchmark_results
+    from gcn_maxcut.baselines.analysis import analyze_benchmark_results
 
     results = {
         (100, 3): {"cut": 300.0, "time": 0.1},
@@ -212,8 +212,8 @@ def test_greedy_sweep_numpy_fallback_matches_contract():
     terminals fixed, returned cut consistent, beats the random floor."""
     import numpy as np
     from unittest import mock
-    from gcn_maxcut_tpu.baselines import greedy_sweep_maxcut
-    from gcn_maxcut_tpu.data.generate import random_regular_edges
+    from gcn_maxcut.baselines import greedy_sweep_maxcut
+    from gcn_maxcut.data.generate import random_regular_edges
 
     n, d, k = 512, 6, 3
     edges = random_regular_edges(n, d, seed=4)
@@ -221,7 +221,7 @@ def test_greedy_sweep_numpy_fallback_matches_contract():
     init = rng.integers(0, k, n)
     init[:k] = np.arange(k)
     with mock.patch(
-        "gcn_maxcut_tpu.native.bindings.greedy_sweep_native",
+        "gcn_maxcut.native.bindings.greedy_sweep_native",
         return_value=None,
     ):
         asn, cut, sweeps = greedy_sweep_maxcut(edges, n, init, k=k)

@@ -5,7 +5,7 @@ import json
 import numpy as np
 import pytest
 
-from gcn_maxcut_tpu.cli import main
+from gcn_maxcut.cli import main
 
 
 def test_generate_train_test_roundtrip(tmp_path, capsys):

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gcn_maxcut_tpu.core import (
+from gcn_maxcut.core import (
     Graph,
     graph_from_edges,
     graph_from_dense,
@@ -97,8 +97,8 @@ def test_batching_rejects_mixed_padding():
 
 def test_rcm_reorder_bands_a_lattice():
     import numpy as np
-    from gcn_maxcut_tpu.data.generate import GraphSpec
-    from gcn_maxcut_tpu.data.reorder import rcm_reorder, graph_bandwidth
+    from gcn_maxcut.data.generate import GraphSpec
+    from gcn_maxcut.data.reorder import rcm_reorder, graph_bandwidth
 
     # 8x8 grid graph, scrambled labels: RCM must recover a small bandwidth
     side = 8
@@ -126,8 +126,8 @@ def test_rcm_reorder_bands_a_lattice():
 
 
 def test_rcm_cannot_band_expander():
-    from gcn_maxcut_tpu.data import generate_graph
-    from gcn_maxcut_tpu.data.reorder import is_bandable
+    from gcn_maxcut.data import generate_graph
+    from gcn_maxcut.data.reorder import is_bandable
 
     spec = generate_graph(n=200, d=6, graph_type="reg", seed=0)
     ok, bw = is_bandable(spec, max_bandwidth=32)

@@ -1,27 +1,27 @@
-"""Dense-MXU aggregation path: parity with the sparse gather path.
+"""Dense aggregation path: parity with the sparse gather path.
 
 The dense path replaces the per-edge gather SpMM with an
 ``n_pad x n_pad`` adjacency matmul (and, in adjacency-feature mode,
 contracts ``W1`` over only its first ``n_pad`` rows, since the reference's
 padded feature columns beyond ``n_pad`` are identically zero —
 ``graphExtender.py:28-48``).  These tests pin the algebraic identities on
-CPU; the speed claim (~2x on v5e) lives in ``bench/microbench.py``.
+CPU.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gcn_maxcut_tpu.core import graph_from_dense
-from gcn_maxcut_tpu.core.graph import dense_adjacency, pad_graph_batch
-from gcn_maxcut_tpu.models import (
+from gcn_maxcut.core import graph_from_dense
+from gcn_maxcut.core.graph import dense_adjacency, pad_graph_batch
+from gcn_maxcut.models import (
     gcn_conv_init,
     gcn_conv_apply,
     gcn_softmax_init,
     gcn_softmax_apply,
 )
-from gcn_maxcut_tpu.train.config import TrainingConfig
-from gcn_maxcut_tpu.train.loop import (
+from gcn_maxcut.train.config import TrainingConfig
+from gcn_maxcut.train.loop import (
     _graph_loss,
     _resolve_dense_aggregation,
     make_epoch_fn,
@@ -135,7 +135,7 @@ def test_epoch_fn_dense_vs_sparse_first_epoch():
     def make(seed):
         rng = np.random.default_rng(seed)
         a = np.triu((rng.random((30, 30)) < 0.4).astype(np.float32), 1)
-        from gcn_maxcut_tpu.core import graph_from_dense as gfd
+        from gcn_maxcut.core import graph_from_dense as gfd
         return gfd(a + a.T, e_pad=512, ell_width=30)
 
     batch = pad_graph_batch([make(s) for s in range(4)])

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gcn_maxcut_tpu.core import graph_from_dense
-from gcn_maxcut_tpu.data import generate_graph, process_graphs, DataConfig
-from gcn_maxcut_tpu.eval import (
+from gcn_maxcut.core import graph_from_dense
+from gcn_maxcut.data import generate_graph, process_graphs, DataConfig
+from gcn_maxcut.eval import (
     simple_assignment,
     sample_partitions,
     post_process,
@@ -20,8 +20,8 @@ from gcn_maxcut_tpu.eval import (
     save_results,
     load_results,
 )
-from gcn_maxcut_tpu.models import gcn_softmax_init
-from gcn_maxcut_tpu.objectives import hard_cut_value
+from gcn_maxcut.models import gcn_softmax_init
+from gcn_maxcut.objectives import hard_cut_value
 from oracle import oracle_cut_value
 
 
@@ -176,7 +176,7 @@ def test_refine_path_in_harness():
 
 
 def test_enhanced_baseline_stats():
-    from gcn_maxcut_tpu.data.enhanced import compute_baseline_stats
+    from gcn_maxcut.data.enhanced import compute_baseline_stats
 
     specs = [generate_graph(n=14, d=3, seed=22)]
     ds = process_graphs(specs, DataConfig(max_nodes=16))
@@ -194,7 +194,7 @@ def test_enhanced_baseline_stats():
 def test_refine_multi_start_beats_or_matches_single():
     """The multi-start climb explores >= the single-start basin, so its cut
     is never worse; starts=1 path also works through the harness."""
-    from gcn_maxcut_tpu.eval.decode import refine_multi_start
+    from gcn_maxcut.eval.decode import refine_multi_start
 
     specs = [generate_graph(n=40, d=5, seed=33)]
     ds = process_graphs(specs, DataConfig(max_nodes=48))
@@ -212,9 +212,9 @@ def test_refine_multi_start_beats_or_matches_single():
     assert res4["refined_cut"] >= res1["post_cut"] - 1e-6
     np.testing.assert_array_equal(res4["refined_assignment"][:3], [0, 1, 2])
     # direct API: assignment valid, cut consistent
-    from gcn_maxcut_tpu.core.graph import dense_adjacency
-    from gcn_maxcut_tpu.models.gcn import gcn_softmax_apply
-    from gcn_maxcut_tpu.objectives.cut_loss import hard_cut_value
+    from gcn_maxcut.core.graph import dense_adjacency
+    from gcn_maxcut.models.gcn import gcn_softmax_apply
+    from gcn_maxcut.objectives.cut_loss import hard_cut_value
 
     probs = gcn_softmax_apply(params, g, dense_adjacency(g, width=48))
     asn, cut = refine_multi_start(g, probs, jax.random.PRNGKey(5), 30, 4)

@@ -5,22 +5,22 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gcn_maxcut_tpu.data.generate import random_regular_edges
-from gcn_maxcut_tpu.parallel.giant import (
+from gcn_maxcut.data.generate import random_regular_edges
+from gcn_maxcut.parallel.giant import (
     GiantConfig,
     sharded_cut,
     train_giant_graph,
 )
-from gcn_maxcut_tpu.parallel.partition import (
+from gcn_maxcut.parallel.partition import (
     local_shard,
     shard_graph,
     shard_specs,
 )
-from gcn_maxcut_tpu.parallel.mesh import make_mesh
+from gcn_maxcut.parallel.mesh import make_mesh
 from jax.sharding import PartitionSpec as P
 
-from gcn_maxcut_tpu.core import graph_from_edges
-from gcn_maxcut_tpu.objectives import relaxed_cut_value
+from gcn_maxcut.core import graph_from_edges
+from gcn_maxcut.objectives import relaxed_cut_value
 
 
 def _coo(n, d, seed):
@@ -109,7 +109,7 @@ def test_giant_checkpoint_resume_reproduces_trajectory(tmp_path):
     """Chunk-aligned resume reproduces the uninterrupted run exactly
     (deterministic scanned epochs + full opt-state restore)."""
     import numpy as np
-    from gcn_maxcut_tpu.parallel.giant import GiantConfig, train_giant_graph
+    from gcn_maxcut.parallel.giant import GiantConfig, train_giant_graph
 
     n = 256
     offs = (1, 2, 5)
@@ -145,7 +145,7 @@ def test_giant_trainer_metis_partition():
     semi-local graph: trains and matches the contiguous-partition cut
     band (the objective is partition-invariant; only ring traffic moves)."""
     import numpy as np
-    from gcn_maxcut_tpu.parallel.giant import GiantConfig, train_giant_graph
+    from gcn_maxcut.parallel.giant import GiantConfig, train_giant_graph
 
     n = 1024
     rng = np.random.default_rng(0)

@@ -3,7 +3,7 @@
 SURVEY.md §4(d): pin the exact reference configuration — not scaled-down
 stand-ins — so a regression in padding, parameter shapes, or the loss
 chain shows up against the published numbers' setup.  Full-length training
-runs live in the TPU benches; here we pin shapes, the 502,003-parameter
+runs live in the on-card benches; here we pin shapes, the 502,003-parameter
 count (``neural_network_testing.ipynb`` cell 6 output), and a few real
 optimizer steps on the true config[0] graph.
 """
@@ -11,10 +11,10 @@ optimizer steps on the true config[0] graph.
 import numpy as np
 import jax
 
-from gcn_maxcut_tpu.core.graph import pad_graph_batch
-from gcn_maxcut_tpu.data import DataConfig, generate_graph, process_graphs
-from gcn_maxcut_tpu.models import count_params, gcn_softmax_init
-from gcn_maxcut_tpu.train import TrainingConfig, make_epoch_fn, setup_train_state
+from gcn_maxcut.core.graph import pad_graph_batch
+from gcn_maxcut.data import DataConfig, generate_graph, process_graphs
+from gcn_maxcut.models import count_params, gcn_softmax_init
+from gcn_maxcut.train import TrainingConfig, make_epoch_fn, setup_train_state
 
 
 def test_config0_exact_shapes_and_param_count():

@@ -11,12 +11,12 @@ import numpy as np
 import jax
 import pytest
 
-from gcn_maxcut_tpu.core.graph import dense_adjacency
-from gcn_maxcut_tpu.data import DataConfig, generate_graph, process_graphs
-from gcn_maxcut_tpu.data.generate import generate_graph_dataset
-from gcn_maxcut_tpu.models import gcn_softmax_init, gcn_softmax_apply
-from gcn_maxcut_tpu.objectives import compute_loss
-from gcn_maxcut_tpu.ops import pin_terminals, ste_argmax_onehot
+from gcn_maxcut.core.graph import dense_adjacency
+from gcn_maxcut.data import DataConfig, generate_graph, process_graphs
+from gcn_maxcut.data.generate import generate_graph_dataset
+from gcn_maxcut.models import gcn_softmax_init, gcn_softmax_apply
+from gcn_maxcut.objectives import compute_loss
+from gcn_maxcut.ops import pin_terminals, ste_argmax_onehot
 
 
 @pytest.mark.parametrize("graph_type", ["prob", "erdos", "reg_random"])

@@ -9,16 +9,16 @@ import optax
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gcn_maxcut_tpu.data.generate import random_regular_edges
-from gcn_maxcut_tpu.models.gcn import gcn_conv_init
-from gcn_maxcut_tpu.parallel.giant import GiantConfig, make_giant_step
-from gcn_maxcut_tpu.parallel.hybrid import (
+from gcn_maxcut.data.generate import random_regular_edges
+from gcn_maxcut.models.gcn import gcn_conv_init
+from gcn_maxcut.parallel.giant import GiantConfig, make_giant_step
+from gcn_maxcut.parallel.hybrid import (
     make_hybrid_step,
     stack_sharded_graphs,
     train_hybrid,
 )
-from gcn_maxcut_tpu.parallel.mesh import make_mesh
-from gcn_maxcut_tpu.parallel.partition import shard_graph
+from gcn_maxcut.parallel.mesh import make_mesh
+from gcn_maxcut.parallel.partition import shard_graph
 
 
 def _sym_edges(n: int, d: int, seed: int):
@@ -136,29 +136,30 @@ def test_stack_sharded_graphs_pads_mismatched_e_group():
 
 
 def test_stack_sharded_graphs_stacks_matching_bell_plans():
+    """Two graphs whose ELL tables differ in width stack into one pytree:
+    the narrower tables are padded with empty slots."""
     import numpy as np
-    from gcn_maxcut_tpu.parallel.hybrid import stack_sharded_graphs
-    from gcn_maxcut_tpu.parallel.partition import shard_graph
+    from gcn_maxcut.parallel.hybrid import stack_sharded_graphs
+    from gcn_maxcut.parallel.partition import shard_graph
 
     n = 2048
-    offs = (1, 2, 5)
 
-    def coo(shift):
+    def coo(offs):
         s = np.concatenate([np.arange(n) for _ in offs]).astype(np.int64)
         r = np.concatenate(
-            [(np.arange(n) + o + shift) % n for o in offs]
+            [(np.arange(n) + o) % n for o in offs]
         ).astype(np.int64)
-        keep = s != r
-        s, r = s[keep], r[keep]
         return np.concatenate([s, r]), np.concatenate([r, s])
 
     sgs = []
-    for shift in (0, 1):
-        s, r = coo(shift)
-        sg, _ = shard_graph(s, r, n, 1, block_ell=True)
-        assert sg.bell_senders is not None
+    for offs in ((1, 2, 5), (1, 2, 5, 9)):
+        s, r = coo(offs)
+        sg, _ = shard_graph(s, r, n, 1)
+        assert sg.ell_senders is not None
         sgs.append(sg)
+    assert sgs[0].ell_senders.shape[-1] < sgs[1].ell_senders.shape[-1]
     sgb = stack_sharded_graphs(sgs)
-    assert sgb.bell_senders is not None
-    assert sgb.bell_senders.shape[0] == 2
-    assert sgb.bell_block == sgs[0].bell_block
+    assert sgb.ell_senders.shape[0] == 2
+    assert sgb.ell_senders.shape[-1] == sgs[1].ell_senders.shape[-1]
+    w0 = np.asarray(sgb.ell_weights[0])
+    assert (w0[..., sgs[0].ell_senders.shape[-1]:] == 0).all()

@@ -1,13 +1,13 @@
 """config[3] harness: k-way sweep on the sharded giant-graph trainer.
 
 Runs tiny instances on the virtual 8-device CPU mesh (same shard_map code
-path as a TPU slice) and checks structure + that training beats the
+path as a multi-GPU mesh) and checks structure + that training beats the
 uniform-random cut floor (k-1)/k for each k.
 """
 
 import numpy as np
 
-from gcn_maxcut_tpu.bench.kway_sweep import kway_sweep
+from gcn_maxcut.bench.kway_sweep import kway_sweep
 
 
 def test_kway_sweep_tiny():

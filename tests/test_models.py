@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gcn_maxcut_tpu.core import graph_from_dense, dense_adjacency
-from gcn_maxcut_tpu.models import (
+from gcn_maxcut.core import graph_from_dense, dense_adjacency
+from gcn_maxcut.models import (
     gcn_conv_init,
     gcn_conv_apply,
     gcn_softmax_init,
@@ -166,7 +166,7 @@ def test_conv_hand_verified_golden_fixture():
     y = np.asarray(gcn_conv_apply(params, g, jnp.asarray(x)))
     np.testing.assert_allclose(y[:5], golden, rtol=1e-6, atol=1e-6)
 
-    # Same fixture through the dense-MXU aggregation path.
+    # Same fixture through the dense aggregation path.
     y_dense = np.asarray(
         gcn_conv_apply(params, g, jnp.asarray(x), a_dense=dense_adjacency(g, values="mask"))
     )

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gcn_maxcut_tpu.native import (
+from gcn_maxcut.native import (
     is_available,
     random_regular_edges_native,
     sort_by_receiver_native,
@@ -87,7 +87,7 @@ def test_native_greedy_improves_and_consistent():
 
 
 def test_python_generate_dispatches_to_native_for_large_n():
-    from gcn_maxcut_tpu.data.generate import random_regular_edges
+    from gcn_maxcut.data.generate import random_regular_edges
 
     e = random_regular_edges(20_000, 4, seed=5)
     deg = np.bincount(e.ravel(), minlength=20_000)
@@ -98,8 +98,8 @@ def test_native_shard_assembly_matches_numpy_path():
     """gt_shard_counts/fill must reproduce the NumPy lexsort assembly
     bit-for-bit (incl. ELL tables, padding, degrees, node masks)."""
     import numpy as np
-    from gcn_maxcut_tpu.native.bindings import is_available
-    from gcn_maxcut_tpu.parallel import shard_graph
+    from gcn_maxcut.native.bindings import is_available
+    from gcn_maxcut.parallel import shard_graph
 
     if not is_available():
         import pytest
@@ -107,7 +107,7 @@ def test_native_shard_assembly_matches_numpy_path():
         pytest.skip("native toolkit unavailable")
     rng = np.random.default_rng(3)
     n, deg, D = 96, 6, 8
-    from gcn_maxcut_tpu.data.generate import random_regular_edges
+    from gcn_maxcut.data.generate import random_regular_edges
 
     e = random_regular_edges(n, deg, seed=5)
     s = np.concatenate([e[:, 0], e[:, 1]])
@@ -137,7 +137,7 @@ def test_native_shard_assembly_matches_numpy_path():
 
 def test_native_symmetry_check_hash():
     import numpy as np
-    from gcn_maxcut_tpu.native.bindings import is_available, symmetry_check_native
+    from gcn_maxcut.native.bindings import is_available, symmetry_check_native
 
     if not is_available():
         import pytest
@@ -154,14 +154,14 @@ def test_native_symmetry_check_hash():
 
 
 def test_greedy_sweep_native_beats_random_and_is_consistent():
-    from gcn_maxcut_tpu.native.bindings import (
+    from gcn_maxcut.native.bindings import (
         greedy_sweep_native, is_available,
     )
     if not is_available():
         import pytest
         pytest.skip("native toolkit not built")
     import numpy as np
-    from gcn_maxcut_tpu.data.generate import random_regular_edges
+    from gcn_maxcut.data.generate import random_regular_edges
 
     n, d, k = 4096, 6, 3
     edges = random_regular_edges(n, d, seed=2)

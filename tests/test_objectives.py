@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gcn_maxcut_tpu.core import graph_from_dense
-from gcn_maxcut_tpu.objectives import (
+from gcn_maxcut.core import graph_from_dense
+from gcn_maxcut.objectives import (
     relaxed_cut_value,
     compute_loss,
     cut_loss,

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gcn_maxcut_tpu.core import graph_from_dense, dense_adjacency
-from gcn_maxcut_tpu.ops import (
+from gcn_maxcut.core import graph_from_dense, dense_adjacency
+from gcn_maxcut.ops import (
     spmm_xla,
     sddmm,
     segment_sum_edges,
@@ -120,7 +120,7 @@ def test_ell_path_matches_segment_path():
     g, a = _graph_and_dense(25, 0.3, 11)
     assert g.ell_senders is not None
     x = jnp.asarray(np.random.default_rng(12).normal(size=(g.n_pad, 6)), jnp.float32)
-    from gcn_maxcut_tpu.ops.segment import spmm, spmm_ell
+    from gcn_maxcut.ops.segment import spmm, spmm_ell
 
     np.testing.assert_allclose(
         np.asarray(spmm_ell(g, x, "mask")), np.asarray(spmm_xla(g, x)), rtol=1e-5
@@ -140,7 +140,7 @@ def test_ell_bf16_feature_mode_matches_f32():
     x = jnp.asarray(
         np.random.default_rng(12).normal(size=(g.n_pad, 6)), jnp.float32
     )
-    from gcn_maxcut_tpu.ops.segment import spmm
+    from gcn_maxcut.ops.segment import spmm
 
     y32 = np.asarray(spmm(g, x))
     y16 = np.asarray(spmm(g, x, feature_dtype=jnp.bfloat16))
@@ -166,7 +166,7 @@ def test_ell_custom_vjp_matches_autodiff():
 
     g, a = _graph_and_dense(17, 0.4, 13)
     x = jnp.asarray(np.random.default_rng(14).normal(size=(g.n_pad, 4)), jnp.float32)
-    from gcn_maxcut_tpu.ops.segment import spmm
+    from gcn_maxcut.ops.segment import spmm
 
     g1 = jax.grad(lambda x_: jnp.sum(jnp.tanh(spmm(g, x_))))(x)
     g2 = jax.grad(lambda x_: jnp.sum(jnp.tanh(spmm_xla(g, x_))))(x)
@@ -179,13 +179,13 @@ def test_ell_skipped_for_high_degree_rows():
     adj = np.zeros((n, n), np.float32)
     adj[0, 1:] = 1.0
     adj[1:, 0] = 1.0
-    from gcn_maxcut_tpu.core.graph import ELL_MAX_DEGREE
+    from gcn_maxcut.core.graph import ELL_MAX_DEGREE
 
     assert n - 1 > ELL_MAX_DEGREE
     g = graph_from_dense(adj)
     assert g.ell_senders is None
     x = jnp.ones((g.n_pad, 3), jnp.float32)
-    from gcn_maxcut_tpu.ops.segment import spmm
+    from gcn_maxcut.ops.segment import spmm
 
     y = np.asarray(spmm(g, x))
     assert y[0, 0] == n - 1  # hub aggregates all leaves

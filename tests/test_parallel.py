@@ -1,6 +1,6 @@
 """Sharded SpMM / DP training on the virtual 8-device CPU mesh.
 
-These exercise the exact shard_map code paths that run on a real TPU slice
+These exercise the exact shard_map code paths that run across real GPUs
 (SURVEY.md §4c): partitioning invariants, ring-vs-allgather equivalence
 with the single-device segment-sum SpMM, sharded GCN conv parity, and the
 data-parallel epoch step.
@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from gcn_maxcut_tpu.core import graph_from_edges, pad_graph_batch
-from gcn_maxcut_tpu.data import generate_graph, process_graphs, DataConfig
-from gcn_maxcut_tpu.models import gcn_conv_init, gcn_conv_apply
-from gcn_maxcut_tpu.ops import spmm_xla
-from gcn_maxcut_tpu.parallel import (
+from gcn_maxcut.core import graph_from_edges, pad_graph_batch
+from gcn_maxcut.data import generate_graph, process_graphs, DataConfig
+from gcn_maxcut.models import gcn_conv_init, gcn_conv_apply
+from gcn_maxcut.ops import spmm_xla
+from gcn_maxcut.parallel import (
     make_mesh,
     shard_graph,
     partition_nodes_contiguous,
@@ -26,16 +26,16 @@ from gcn_maxcut_tpu.parallel import (
     make_dp_epoch_fn,
     shard_batch_for_dp,
 )
-from gcn_maxcut_tpu.parallel.spmm import sharded_gcn_conv
-from gcn_maxcut_tpu.parallel.partition import shard_specs, local_shard
-from gcn_maxcut_tpu.train import TrainingConfig, setup_train_state
+from gcn_maxcut.parallel.spmm import sharded_gcn_conv
+from gcn_maxcut.parallel.partition import shard_specs, local_shard
+from gcn_maxcut.train import TrainingConfig, setup_train_state
 
 
 D = 8  # virtual device count from conftest
 
 
 def _random_coo(n, d, seed):
-    from gcn_maxcut_tpu.data.generate import random_regular_edges
+    from gcn_maxcut.data.generate import random_regular_edges
 
     e = random_regular_edges(n, d, seed=seed)
     senders = np.concatenate([e[:, 0], e[:, 1]])
@@ -246,7 +246,7 @@ def test_ell_group_tables_match_coo_aggregation():
 
 
 def test_sharded_spmm_sym_gradient_matches_autodiff():
-    from gcn_maxcut_tpu.parallel.spmm import sharded_spmm_sym
+    from gcn_maxcut.parallel.spmm import sharded_spmm_sym
 
     n, deg = 64, 4
     s, r = _random_coo(n, deg, 6)
@@ -268,8 +268,8 @@ def test_sharded_spmm_sym_gradient_matches_autodiff():
 
 
 def test_sharded_cut_edgeform_matches_original():
-    from gcn_maxcut_tpu.parallel.giant import sharded_cut
-    from gcn_maxcut_tpu.parallel.spmm import sharded_cut_edgeform
+    from gcn_maxcut.parallel.giant import sharded_cut
+    from gcn_maxcut.parallel.spmm import sharded_cut_edgeform
 
     n, deg = 96, 4
     s, r = _random_coo(n, deg, 7)
@@ -351,7 +351,7 @@ def test_asymmetric_graph_falls_back_to_autodiff_backward():
 def test_partition_quality_banded_graph():
     """Contiguous partitioning of a banded graph must keep almost all edges
     local; the quality report quantifies it (VERDICT r1 item 5)."""
-    from gcn_maxcut_tpu.parallel import partition_quality
+    from gcn_maxcut.parallel import partition_quality
 
     n, W = 512, 4
     offs = np.array([1, 2, 3, 4])
@@ -400,7 +400,7 @@ def test_shard_graph_vectorized_matches_reference_assembly():
             np.testing.assert_allclose(Wt[d, grp, :m], w[sel])
 
 
-# ---- hop-0 block-ELL routing (VERDICT r4 #3) ------------------------------
+# ---- hop-0 (intra-shard) aggregation on the gather tables ----------------
 
 
 def _banded_coo(n, offsets, seed=0):
@@ -412,29 +412,36 @@ def _banded_coo(n, offsets, seed=0):
     return np.concatenate([s, r]), np.concatenate([r, s])
 
 
+def _ring_aggregate_outside_shard_map(sg, x_sh):
+    """out[d] = sum_s aggregate(shard d, hop s, x[(d+s) % D]) — the ring
+    schedule hop by hop, numerically identical to ``sharded_spmm_ring``."""
+    from gcn_maxcut.parallel.spmm import _group_aggregate
+
+    n_shard, F = x_sh.shape[1:]
+    out = np.zeros(x_sh.shape, np.float32)
+    for d in range(D):
+        sgl = jax.tree_util.tree_map(
+            lambda a: a[d] if getattr(a, "ndim", 0) > 0 else a, sg
+        )
+        acc = jnp.zeros((n_shard, F), jnp.float32)
+        for s in range(D):
+            acc = acc + _group_aggregate(sgl, s, x_sh[(d + s) % D])
+        out[d] = np.asarray(acc)
+    return out
+
+
 @pytest.mark.parametrize(
     "local_reorder,F", [("off", 128), ("rcm", 128), ("off", 64), ("off", 3)]
 )
-def test_shard_graph_block_ell_attaches_and_matches(local_reorder, F):
-    """Hop-0 block-ELL routing equals the dense reference.
-
-    The ring is simulated hop by hop OUTSIDE shard_map (out[d] = sum_s
-    aggregate(shard d, hop s, x[(d+s) % D])) — numerically identical to
-    ``sharded_spmm_ring`` (whose shard_map composition the no-bell tests
-    above cover) but avoids TPU-interpret pallas inside shard_map, which
-    wedges on the CPU backend at this size (the hardware path is exercised
-    by ``experiments/bell_crossover.py``)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from gcn_maxcut_tpu.parallel.spmm import _group_aggregate
-
+def test_shard_graph_hop0_gather_matches_dense(local_reorder, F):
+    """Banded graph, every hop on the ELL gather tables (with and without
+    the per-shard RCM relabel) equals the dense reference."""
     n = 8192
     senders, receivers = _banded_coo(n, (1, 2, 3, 40), seed=7)
     sg, g2l = shard_graph(
-        senders, receivers, n, D,
-        block_ell=True, local_reorder=local_reorder,
+        senders, receivers, n, D, local_reorder=local_reorder,
     )
-    assert sg.bell_senders is not None, "local banded subgraph must plan"
-    assert sg.bell_block is not None and sg.n_shard % sg.bell_block == 0
+    assert sg.ell_senders is not None
     n_shard = sg.n_shard
     owner, local = g2l // n_shard, g2l % n_shard
 
@@ -446,44 +453,38 @@ def test_shard_graph_block_ell_attaches_and_matches(local_reorder, F):
 
     x_sh = np.zeros((D, n_shard, F), np.float32)
     x_sh[owner, local] = x_global
-    x_sh = jnp.asarray(x_sh)
-
-    out = np.zeros((D, n_shard, F), np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        for d in range(D):
-            sgl = jax.tree_util.tree_map(
-                lambda a: a[d] if getattr(a, "ndim", 0) > 0 else a, sg
-            )
-            acc = jnp.zeros((n_shard, F), jnp.float32)
-            for s in range(D):
-                acc = acc + _group_aggregate(sgl, s, x_sh[(d + s) % D])
-            out[d] = np.asarray(acc)
-    got = out[owner, local]
-    np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-4)
+    out = _ring_aggregate_outside_shard_map(sg, jnp.asarray(x_sh))
+    np.testing.assert_allclose(out[owner, local], expect, rtol=1e-4, atol=1e-4)
 
 
-def test_shard_graph_block_ell_expander_falls_back():
+def test_shard_graph_expander_uses_gather_tables():
     s, r = _random_coo(8192, 6, seed=11)
-    sg, _ = shard_graph(s, r, 8192, D, block_ell=True)
-    # uniform random regular graph: per-shard local subgraphs are
-    # expanders, no window plan -> silent fallback to the gather tables
-    assert sg.bell_senders is None
+    sg, _ = shard_graph(s, r, 8192, D)
+    # uniform random regular graph: every hop on the gather tables
     assert sg.ell_senders is not None
+    assert sg.n_shard % 8 == 0
 
 
-def test_shard_graph_block_ell_rcm_recovers_shuffled_band():
+def test_shard_graph_rcm_recovers_shuffled_band():
     """A shuffled banded graph does not band contiguously, but the
-    per-shard RCM relabel recovers a plan (on the BFS partition)."""
+    per-shard RCM relabel (on the BFS partition) narrows each shard's
+    local band."""
     n = 8192
     senders, receivers = _banded_coo(n, (1, 2, 3), seed=3)
     rng = np.random.default_rng(0)
     perm = rng.permutation(n)
     s2, r2 = perm[senders], perm[receivers]
     owner = partition_nodes_bfs(s2, r2, n, D)
-    sg, _ = shard_graph(
-        s2, r2, n, D, owner=owner, block_ell=True, local_reorder="rcm"
-    )
-    assert sg.bell_senders is not None
+
+    def local_bandwidth(sg):
+        m = np.asarray(sg.edge_mask[:, 0]) > 0
+        return int(np.abs(
+            np.asarray(sg.senders[:, 0])[m] - np.asarray(sg.receivers[:, 0])[m]
+        ).max())
+
+    sg_off, _ = shard_graph(s2, r2, n, D, owner=owner)
+    sg_rcm, _ = shard_graph(s2, r2, n, D, owner=owner, local_reorder="rcm")
+    assert local_bandwidth(sg_rcm) < local_bandwidth(sg_off) // 4
 
 
 def test_partition_metis_quality_and_balance():
@@ -495,8 +496,8 @@ def test_partition_metis_quality_and_balance():
     rng = np.random.default_rng(0)
     perm = rng.permutation(n)
     s2, r2 = perm[senders], perm[receivers]
-    from gcn_maxcut_tpu.parallel import partition_nodes_metis
-    from gcn_maxcut_tpu.parallel.partition import partition_quality
+    from gcn_maxcut.parallel import partition_nodes_metis
+    from gcn_maxcut.parallel.partition import partition_quality
 
     owner = partition_nodes_metis(s2, r2, n, 8)
     counts = np.bincount(owner, minlength=8)
@@ -510,21 +511,16 @@ def test_partition_metis_quality_and_balance():
     assert q["cross_shard_edge_fraction"] < qc["cross_shard_edge_fraction"]
 
 
-def test_shard_graph_block_ell_weighted_matches():
-    """Weighted edges through the hop-0 block-ELL plan: the bell tables
-    carry the real edge weights, outliers included."""
-    from jax.experimental.pallas import tpu as pltpu
-    from gcn_maxcut_tpu.parallel.spmm import _group_aggregate
-
+def test_shard_graph_weighted_hop0_matches():
+    """Weighted edges through the sharded gather tables: the tables carry
+    the real edge weights."""
     n = 8192
     senders, receivers = _banded_coo(n, (1, 2, 40), seed=9)
     rng = np.random.default_rng(4)
     half = rng.random(senders.shape[0] // 2).astype(np.float32) + 0.5
     weights = np.concatenate([half, half])  # symmetric weights
-    sg, g2l = shard_graph(
-        senders, receivers, n, D, weights=weights, block_ell=True
-    )
-    assert sg.bell_senders is not None
+    sg, g2l = shard_graph(senders, receivers, n, D, weights=weights)
+    assert sg.ell_senders is not None
     n_shard = sg.n_shard
     owner, local = g2l // n_shard, g2l % n_shard
 
@@ -535,16 +531,5 @@ def test_shard_graph_block_ell_weighted_matches():
 
     x_sh = np.zeros((D, n_shard, 128), np.float32)
     x_sh[owner, local] = x_global
-    x_sh = jnp.asarray(x_sh)
-    out = np.zeros((D, n_shard, 128), np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        for d in range(D):
-            sgl = jax.tree_util.tree_map(
-                lambda a: a[d] if getattr(a, "ndim", 0) > 0 else a, sg
-            )
-            acc = jnp.zeros((n_shard, 128), jnp.float32)
-            for s in range(D):
-                acc = acc + _group_aggregate(sgl, s, x_sh[(d + s) % D])
-            out[d] = np.asarray(acc)
-    got = out[owner, local]
-    np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-4)
+    out = _ring_aggregate_outside_shard_map(sg, jnp.asarray(x_sh))
+    np.testing.assert_allclose(out[owner, local], expect, rtol=1e-4, atol=1e-4)

@@ -1,7 +1,7 @@
 """Batched vs per-graph stepping: both modes must train.
 
 "per_graph" reproduces the reference's one-Adam-step-per-graph epoch
-(``TrainingNeural.py:341-390``); "batched" is the TPU-idiomatic variant
+(``TrainingNeural.py:341-390``); "batched" is the vmapped variant
 (one step per epoch on the vmapped batch).  They are different optimizers
 trajectories by construction, so the contract tested is: both strictly
 improve the cut objective, and their first-epoch cumulative losses agree
@@ -11,9 +11,9 @@ up to the step-ordering difference.
 import numpy as np
 import jax
 
-from gcn_maxcut_tpu.core import graph_from_dense
-from gcn_maxcut_tpu.core.graph import pad_graph_batch
-from gcn_maxcut_tpu.train import TrainingConfig, make_epoch_fn, setup_train_state
+from gcn_maxcut.core import graph_from_dense
+from gcn_maxcut.core.graph import pad_graph_batch
+from gcn_maxcut.train import TrainingConfig, make_epoch_fn, setup_train_state
 
 
 def _batch(num=4, n=30, p=0.4):

@@ -20,9 +20,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from gcn_maxcut_tpu.core import graph_from_dense
-from gcn_maxcut_tpu.core.graph import pad_graph_batch
-from gcn_maxcut_tpu.train import (
+from gcn_maxcut.core import graph_from_dense
+from gcn_maxcut.core.graph import pad_graph_batch
+from gcn_maxcut.train import (
     TrainingConfig,
     load_torch_checkpoint,
     make_epoch_fn,
@@ -189,7 +189,7 @@ def test_cli_convert_torch_to_npz(tmp_path):
     _make_reference_checkpoint(src)
     dst = str(tmp_path / "migrated.npz")
     proc = subprocess.run(
-        [sys.executable, "-m", "gcn_maxcut_tpu", "convert", src, dst],
+        [sys.executable, "-m", "gcn_maxcut", "convert", src, dst],
         capture_output=True, text=True, cwd="/root/repo",
         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
              "PYTHONPATH": "/root/repo", "HOME": "/root"},
@@ -197,7 +197,7 @@ def test_cli_convert_torch_to_npz(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert '"direction": "torch->npz"' in proc.stdout
-    from gcn_maxcut_tpu.train import load_checkpoint
+    from gcn_maxcut.train import load_checkpoint
 
     cfg = TrainingConfig(n_nodes=N, hidden_dim=HID, learning_rate=2e-3)
     state = setup_train_state(cfg)

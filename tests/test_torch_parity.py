@@ -17,11 +17,11 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from gcn_maxcut_tpu.core import graph_from_dense, dense_adjacency
-from gcn_maxcut_tpu.models import gcn_softmax_init
-from gcn_maxcut_tpu.models.gcn import gcn_conv_apply
-from gcn_maxcut_tpu.objectives import compute_loss
-from gcn_maxcut_tpu.ops import pin_terminals, ste_argmax_onehot
+from gcn_maxcut.core import graph_from_dense, dense_adjacency
+from gcn_maxcut.models import gcn_softmax_init
+from gcn_maxcut.models.gcn import gcn_conv_apply
+from gcn_maxcut.objectives import compute_loss
+from gcn_maxcut.ops import pin_terminals, ste_argmax_onehot
 
 
 def _random_graph(n=30, p=0.3, seed=0):

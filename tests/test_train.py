@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gcn_maxcut_tpu.core import pad_graph_batch
-from gcn_maxcut_tpu.data import generate_graph, process_graphs, DataConfig
-from gcn_maxcut_tpu.train import (
+from gcn_maxcut.core import pad_graph_batch
+from gcn_maxcut.data import generate_graph, process_graphs, DataConfig
+from gcn_maxcut.train import (
     TrainingConfig,
     setup_train_state,
     make_epoch_fn,
@@ -18,7 +18,7 @@ from gcn_maxcut_tpu.train import (
     load_checkpoint,
     checkpoint_name,
 )
-from gcn_maxcut_tpu.models import count_params
+from gcn_maxcut.models import count_params
 
 
 @pytest.fixture(scope="module")
@@ -158,8 +158,8 @@ def test_embedding_feature_mode(tiny_dataset):
 
 
 def test_train_resume_from_checkpoint(tiny_dataset, tmp_path):
-    from gcn_maxcut_tpu.train import train_model, save_checkpoint
-    from gcn_maxcut_tpu.train.loop import setup_train_state
+    from gcn_maxcut.train import train_model, save_checkpoint
+    from gcn_maxcut.train.loop import setup_train_state
 
     batch = _batch(tiny_dataset)
     cfg = TrainingConfig(
@@ -238,8 +238,8 @@ def test_exact_epoch_best_restore_chunked(tiny_dataset):
 
 
 def test_train_from_files_merges_datasets(tmp_path):
-    from gcn_maxcut_tpu.data import save_dataset
-    from gcn_maxcut_tpu.train.loop import train_from_files
+    from gcn_maxcut.data import save_dataset
+    from gcn_maxcut.train.loop import train_from_files
 
     for i in range(2):
         specs = [
@@ -292,7 +292,7 @@ def test_entropy_weight_lever(tiny_dataset):
     """entropy_weight > 0 trains end-to-end and raises the mean per-node
     entropy of the learned distribution vs the plain recipe (the lever's
     whole point: give the 200-rollout sampled decode variance to exploit)."""
-    from gcn_maxcut_tpu.eval.harness import _forward
+    from gcn_maxcut.eval.harness import _forward
 
     batch = _batch(tiny_dataset)
     ents = {}

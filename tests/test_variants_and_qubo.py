@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gcn_maxcut_tpu.core import graph_from_dense
-from gcn_maxcut_tpu.data import generate_graph, process_graphs, DataConfig
-from gcn_maxcut_tpu.objectives import relaxed_cut_value
-from gcn_maxcut_tpu.objectives.variants import (
+from gcn_maxcut.core import graph_from_dense
+from gcn_maxcut.data import generate_graph, process_graphs, DataConfig
+from gcn_maxcut.objectives import relaxed_cut_value
+from gcn_maxcut.objectives.variants import (
     ha_one_hot_penalty,
     intra_partition_weight,
     min_cut_intra_inter,
@@ -16,7 +16,7 @@ from gcn_maxcut_tpu.objectives.variants import (
     per_partition_cut,
     weighted_cut_loss,
 )
-from gcn_maxcut_tpu.train.qubo_loop import QuboConfig, run_gnn_training
+from gcn_maxcut.train.qubo_loop import QuboConfig, run_gnn_training
 from oracle import oracle_cut_value
 
 
@@ -113,7 +113,7 @@ def test_qubo_training_loop_end_to_end():
 
 
 def test_debug_helpers():
-    from gcn_maxcut_tpu.utils.debug import assert_finite, checked, debug_mode
+    from gcn_maxcut.utils.debug import assert_finite, checked, debug_mode
 
     assert_finite({"a": jnp.ones(3)}, "params")
     with pytest.raises(FloatingPointError):
@@ -129,7 +129,7 @@ def test_debug_helpers():
 
 
 def test_metrics_logger(tmp_path):
-    from gcn_maxcut_tpu.utils.profiling import MetricsLogger
+    from gcn_maxcut.utils.profiling import MetricsLogger
 
     ml = MetricsLogger(tmp_path / "metrics.jsonl")
     ml.log(0, loss=-5.0, cut=5.0)
@@ -145,9 +145,9 @@ def test_sampled_cut_stats_match_monte_carlo():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from gcn_maxcut_tpu.data.generate import generate_graph
-    from gcn_maxcut_tpu.data.process import process_graphs, DataConfig
-    from gcn_maxcut_tpu.objectives import sampled_cut_stats, hard_cut_value
+    from gcn_maxcut.data.generate import generate_graph
+    from gcn_maxcut.data.process import process_graphs, DataConfig
+    from gcn_maxcut.objectives import sampled_cut_stats, hard_cut_value
 
     ds = process_graphs(
         [generate_graph(n=24, d=4, graph_type="reg", seed=5)],
@@ -173,10 +173,10 @@ def test_sampled_cut_stats_match_monte_carlo():
 
 def test_quantile_loss_mode_trains():
     import numpy as np
-    from gcn_maxcut_tpu.data.generate import generate_graph
-    from gcn_maxcut_tpu.data.process import process_graphs, DataConfig
-    from gcn_maxcut_tpu.train.config import TrainingConfig
-    from gcn_maxcut_tpu.train.loop import train_model, pad_graph_batch
+    from gcn_maxcut.data.generate import generate_graph
+    from gcn_maxcut.data.process import process_graphs, DataConfig
+    from gcn_maxcut.train.config import TrainingConfig
+    from gcn_maxcut.train.loop import train_model, pad_graph_batch
 
     ds = process_graphs(
         [generate_graph(n=24, d=4, graph_type="reg", seed=7)],

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gcn_maxcut_tpu.viz import (
+from gcn_maxcut.viz import (
     HAS_MATPLOTLIB,
     bar_plot_3,
     bar_plot_2,
@@ -62,7 +62,7 @@ def test_panel_and_loss_history(tmp_path):
 
 
 def test_bar_plot_generic_dot_full_surface(tmp_path):
-    from gcn_maxcut_tpu.viz import bar_plot_generic_dot
+    from gcn_maxcut.viz import bar_plot_generic_dot
 
     cats = ["n=50", "n=100", "n=200"]
     series = {
@@ -87,7 +87,7 @@ def test_bar_plot_generic_dot_full_surface(tmp_path):
 
 
 def test_bar_plot_speedup_dot_and_2_speedup(tmp_path):
-    from gcn_maxcut_tpu.viz import bar_plot_2_speedup, bar_plot_speedup_dot
+    from gcn_maxcut.viz import bar_plot_2_speedup, bar_plot_speedup_dot
 
     fig = bar_plot_speedup_dot(
         ["n=50", "n=100"],
@@ -105,7 +105,7 @@ def test_bar_plot_speedup_dot_and_2_speedup(tmp_path):
 
 
 def test_generate_sample_baseline_data_shapes():
-    from gcn_maxcut_tpu.viz import generate_sample_baseline_data
+    from gcn_maxcut.viz import generate_sample_baseline_data
 
     results = {
         50: {
